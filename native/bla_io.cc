@@ -1,10 +1,10 @@
-// Native host-side IO for big-linear-algebra-tpu.
+// Native host-side IO for big-linear-algebra.
 //
-// TPU-native rebuild of the reference's C IO layer (lib/csv.c, lib/cifar10.c,
+// Native rebuild of the reference's C IO layer (lib/csv.c, lib/cifar10.c,
 // lib/bmp.c, lib/mnist_csv2.c): the device compute path is JAX/XLA/Pallas,
 // but the host-side data plane (CSV parsing of ~100MB MNIST files, binary
 // CIFAR batches, BMP dumps) stays native for throughput. Exposed as a plain
-// C ABI consumed via ctypes (see big_linear_algebra_tpu/data/_native.py);
+// C ABI consumed via ctypes (see big_linear_algebra/data/_native.py);
 // every entry point has a pure-Python fallback.
 //
 // CSV value contract (reference lib/csv.c:7-16,40-52, SURVEY.md §7.12): a ','

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.ops import relu, softmax, softmax_row_wise
+from big_linear_algebra.ops import relu, softmax, softmax_row_wise
 from tests import oracle
 
 needs_ref = pytest.mark.skipif(

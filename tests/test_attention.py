@@ -1,4 +1,5 @@
-"""Attention tests: dense reference math, flash Pallas kernel parity, VJPs."""
+"""Attention tests: dense reference math, flash kernel parity (Pallas
+interpret mode on the CPU), VJPs."""
 
 import math
 
@@ -7,12 +8,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.nn.attention import (
+from big_linear_algebra.nn.attention import (
+    FlashBlocks,
     attention,
     attention_dense,
     flash_attention,
+    flash_blocks,
     self_attention_block,
 )
+
+
+def _blocks(bq, bk):
+    return FlashBlocks(bq, bk, bq, bk, 4)
 
 
 def _np_attention(q, k, v):
@@ -57,7 +64,7 @@ def test_flash_forward_matches_dense(rng, n, d, bq, bk):
     q = jnp.asarray(rng.standard_normal((2, n, d)), jnp.float32)
     k = jnp.asarray(rng.standard_normal((2, n, d)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((2, n, d)), jnp.float32)
-    out = np.asarray(flash_attention(q, k, v, bq, bk))
+    out = np.asarray(flash_attention(q, k, v, _blocks(bq, bk)))
     want = np.asarray(attention_dense(q, k, v))
     np.testing.assert_allclose(out, want, rtol=2e-4, atol=2e-5)
 
@@ -68,7 +75,8 @@ def test_flash_backward_matches_dense(rng, n):
     k = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
     g = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
-    _, vjp_f = jax.vjp(lambda *a: flash_attention(*a, 128, 128), q, k, v)
+    _, vjp_f = jax.vjp(lambda *a: flash_attention(*a, _blocks(128, 128)),
+                       q, k, v)
     _, vjp_d = jax.vjp(attention_dense, q, k, v)
     for got, want in zip(vjp_f(g), vjp_d(g)):
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
@@ -94,16 +102,17 @@ def test_self_attention_block_shape_and_grad(rng):
         assert np.abs(np.asarray(leaf)).max() > 0
 
 
-def test_flash_nondividing_blocks_lcm_padding(rng):
-    """ADVICE r1: block_q=384, block_k=256, n=300 — max-based padding would
-    give n_pad=384 and silently drop the 384→512 tail; lcm padding (768)
-    keeps every key."""
+def test_flash_unequal_blocks_pad_to_largest(rng):
+    """block_q=64, block_k=16, n=300: the sequence pads to the largest
+    block (320), the 20-row tail is masked, and every key still counts."""
     n, d = 300, 16
     q = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     k = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     g = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
-    out, vjp_f = jax.vjp(lambda *a: flash_attention(*a, 384, 256), q, k, v)
+    out, vjp_f = jax.vjp(
+        lambda *a: flash_attention(*a, FlashBlocks(64, 16, 16, 64, 4)),
+        q, k, v)
     want, vjp_d = jax.vjp(attention_dense, q, k, v)
     np.testing.assert_allclose(np.asarray(out), np.asarray(want),
                                rtol=2e-4, atol=2e-5)
@@ -112,43 +121,30 @@ def test_flash_nondividing_blocks_lcm_padding(rng):
                                    rtol=3e-4, atol=3e-5)
 
 
-def test_flash_backward_two_pass_fallback(rng, monkeypatch):
-    """The long-sequence two-pass backward (used when the fused kernel's
-    resident rows exceed the VMEM budget) must match dense too."""
-    import importlib
-
-    # (the nn package re-exports the `attention` *function* under the same
-    # name, which shadows the submodule in plain `import ... as` syntax)
-    att = importlib.import_module("big_linear_algebra_tpu.nn.attention")
-    monkeypatch.setattr(att, "_BWD_FUSED_VMEM_BUDGET", 0)
-    n = 300
-    q = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
-    k = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
-    v = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
-    g = jnp.asarray(rng.standard_normal((1, n, 16)), jnp.float32)
-    _, vjp_f = jax.vjp(lambda *a: flash_attention(*a, 128, 128), q, k, v)
-    _, vjp_d = jax.vjp(attention_dense, q, k, v)
-    for got, want in zip(vjp_f(g), vjp_d(g)):
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=3e-4, atol=3e-5)
+def test_flash_rejects_non_pow2_blocks():
+    """Triton tiles are powers of two of at least 16 rows: a 384-row or an
+    8-row block is refused at trace time, not on the card."""
+    spec = jax.ShapeDtypeStruct((1, 300, 16), jnp.float32)
+    for blocks in (_blocks(384, 256), _blocks(8, 16)):
+        with pytest.raises(ValueError, match="powers of two"):
+            jax.eval_shape(lambda q: flash_attention(q, q, q, blocks), spec)
 
 
 @pytest.mark.parametrize("n,bq,bk", [
-    (256, 128, 128),
-    (300, 128, 128),   # non-aligned N → padding + masking in-stream
-    (300, 384, 256),   # lcm padding: a fully-padded tail k/q block exists
+    (256, 64, 64),
+    (300, 32, 64),    # non-aligned N → padding + masking
+    (300, 64, 16),    # a fully padded tail key block exists
 ])
-def test_flash_streaming_matches_dense(rng, n, bq, bk):
-    """stream=True forces the streaming-grid kernels (carried scratch
-    state, k/v blocks through the grid) — the long-N path that replaces the
-    old VMEM-budget ValueError. Fwd and all three grads must match dense."""
+def test_flash_fwd_bwd_block_shapes(rng, n, bq, bk):
+    """Forward and all three grads match dense for several tilings,
+    including tails that are masked in the forward and dq kernels."""
     d = 16
     q = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     k = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     g = jnp.asarray(rng.standard_normal((1, n, d)), jnp.float32)
     out, vjp_f = jax.vjp(
-        lambda *a: flash_attention(*a, bq, bk, stream=True), q, k, v)
+        lambda *a: flash_attention(*a, _blocks(bq, bk)), q, k, v)
     want, vjp_d = jax.vjp(attention_dense, q, k, v)
     np.testing.assert_allclose(np.asarray(out), np.asarray(want),
                                rtol=2e-4, atol=2e-5)
@@ -157,10 +153,9 @@ def test_flash_streaming_matches_dense(rng, n, bq, bk):
                                    rtol=3e-4, atol=3e-5)
 
 
-def test_flash_over_budget_selects_streaming():
-    """Sequences whose K/V rows exceed the VMEM budget trace through the
-    streaming path instead of raising (VERDICT r2: remove the N-cap) —
-    N=64k single-chip f32 is legal; so is the 24k backward."""
+def test_flash_long_sequence_traces():
+    """Nothing in the kernel is row-resident beyond one block, so long
+    sequences trace: N=64k forward and a 24k backward at d=128 f32."""
     n, d = 65536, 128
     spec = jax.ShapeDtypeStruct((1, n, d), jnp.float32)
     out = jax.eval_shape(flash_attention, spec, spec, spec)
@@ -171,6 +166,23 @@ def test_flash_over_budget_selects_streaming():
 
     spec_b = jax.ShapeDtypeStruct((1, 24576, 128), jnp.float32)
     assert jax.eval_shape(bwd, spec_b, spec_b, spec_b).shape == spec_b.shape
+
+
+def test_flash_blocks_rule():
+    """Default tiling: powers of two in [16, 128], at most 64 rows for
+    wide f32 rows and for the backward, padding below one block."""
+    for n in (1, 7, 16, 20, 100, 300, 1024, 4096, 16384):
+        for d, dtype in ((16, jnp.bfloat16), (16, jnp.float32),
+                         (128, jnp.bfloat16), (128, jnp.float32)):
+            b = flash_blocks(n, d, dtype)
+            for x in b[:4]:
+                assert 16 <= x <= 128 and x & (x - 1) == 0, (n, d, b)
+            assert max(b.bwd_q, b.bwd_k) <= 64
+            if d == 128 and dtype == jnp.float32:
+                assert b.fwd_k <= 64
+            pad = -(-n // max(b[:4])) * max(b[:4]) - n
+            assert pad < max(b[:4])
+            assert b.num_warps == (4 if d <= 64 else 8)
 
 
 def test_attention_cross_shapes_use_dense(rng):

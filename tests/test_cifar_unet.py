@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.models import cifar_unet as cu
+from big_linear_algebra.models import cifar_unet as cu
 
 
 @pytest.fixture
@@ -78,7 +78,7 @@ def test_train_step_reduces_loss(rng):
 
 def test_scan_unroll_preserves_training_math(rng):
     """Config.scan_unroll only changes code generation (slice-overhead
-    amortization, round-5 measurement): the per-step op ORDER is unchanged,
+    amortization): the per-step op ORDER is unchanged,
     but XLA fuses the unrolled body differently, reassociating float
     reductions at the ulp level (measured ~1e-6 rel on an f32 loss). In f64
     the reassociation noise stays far below f32-grad resolution, so
@@ -107,8 +107,8 @@ def test_scan_unroll_preserves_training_math(rng):
 
 def test_cli_scan_unroll_flag(env_data_dir, capsys):
     """--scan-unroll=N reaches Config; non-positive values are loud."""
-    from big_linear_algebra_tpu.data import synth
-    from big_linear_algebra_tpu.models import common
+    from big_linear_algebra.data import synth
+    from big_linear_algebra.models import common
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -163,7 +163,7 @@ def test_sampling_shape(rng):
 
 
 def test_cli_end_to_end(env_data_dir, capsys):
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -187,7 +187,7 @@ def test_denoise_psnr_improves_with_training(rng):
     """Sample quality as a pass/fail metric (VERDICT r2 #6): one-shot
     denoising PSNR on held-out data rises after training — fails if the
     training path regresses to not-learning."""
-    from big_linear_algebra_tpu.nn.optim import adam_init
+    from big_linear_algebra.nn.optim import adam_init
 
     cfg = cu.TINY
     params = cu.init_params(jax.random.key(0), cfg)
@@ -222,10 +222,10 @@ def test_denoise_psnr_improves_with_training(rng):
 
 
 def test_run_from_train_state(env_data_dir, capsys):
-    """Crash-resume → sample: a killed train leaves only (or a newer) orbax
+    """Crash-resume → sample: a killed train leaves only (or a newer)
     train_state; ``run`` must sample from it instead of the stale/absent CSV
     tree (training-is-resume contract, model/mnist_nn.c:165-170)."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -254,7 +254,7 @@ def test_run_from_train_state(env_data_dir, capsys):
 def test_cli_pp_flag(env_data_dir, capsys):
     """--pp: the down/mid/up stages train as a 3-device gpipe_hetero
     pipeline with microbatched gradient accumulation (make_train_step_pp)."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -280,7 +280,7 @@ def test_cli_pp_flag(env_data_dir, capsys):
 def test_cli_pp_schedule_flag(env_data_dir, capsys):
     """--pp-schedule=1f1b trains via the hand-scheduled pipeline; bad
     values / --dp composition are hard errors."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -304,7 +304,7 @@ def test_cli_pp_dp_flag(env_data_dir, capsys):
     """--pp --dp (VERDICT r3 #3): a 2-D 3-stage × N-data mesh trains via
     make_train_step_pp(data_axis="data"); microbatch/data divisibility is a
     hard error."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -322,7 +322,7 @@ def test_cli_pp_dp_flag(env_data_dir, capsys):
 def test_cli_tp_flag(env_data_dir, capsys):
     """--tp: conv kernels channel-shard over the local devices; the epoch
     runs TP via GSPMD and still converges/logs normally."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -340,7 +340,7 @@ def test_cli_tp_flag(env_data_dir, capsys):
 def test_cli_dp_with_batch_layout_remat(env_data_dir, capsys):
     """The new config flags compose with --dp: batch 8 over the 8-device
     mesh, channels-last layout, remat blocks — one DP step runs and logs."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -357,9 +357,9 @@ def test_cli_dp_with_batch_layout_remat(env_data_dir, capsys):
 
 
 def test_prng_config_and_flag():
-    """--prng selects the key impl (rbg = TPU hardware RNG for random bits,
-    measured 4.015 -> 3.214 ms/step at reference scale; threefry = the
-    bit-stable-across-compilers stream). Bad values are hard errors."""
+    """--prng selects the key impl (rbg = XLA's RngBitGenerator for random
+    bits; threefry = the bit-stable-across-compilers stream). Bad values
+    are hard errors."""
     import dataclasses
 
     assert cu._cfg_from_flags({"prng": "threefry"}).prng == "threefry2x32"
@@ -420,7 +420,7 @@ def test_cli_resume_across_prng_switch(env_data_dir, capsys):
     """train --prng=threefry then plain train (rbg default): the second run
     restores the threefry checkpoint (different key_data width) and keeps
     its RNG stream rather than silently restarting it."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -437,15 +437,15 @@ def test_image_size_64_engages_flash_in_model(rng, monkeypatch):
     """Config.image_size is general; at 64x64 the down_2/up_3 attention
     sites run at N = 32x32 = 1024 tokens = the flash dispatch threshold,
     so the flash Pallas kernels execute inside the real train step (the
-    32x32 reference scale stays dense by measured dispatch). VERDICT r2
-    weak #3: the flash path now has an in-model consumer."""
+    32x32 reference scale stays dense: its N = 256 is below the
+    threshold)."""
     import dataclasses
 
     import importlib
 
     # the module (nn/__init__ re-exports a same-named function, which
     # shadows `import ... as` attribute resolution)
-    attn = importlib.import_module("big_linear_algebra_tpu.nn.attention")
+    attn = importlib.import_module("big_linear_algebra.nn.attention")
 
     cfg = dataclasses.replace(cu.TINY, image_size=64)
     params = cu.init_params(jax.random.key(0), cfg)
@@ -495,7 +495,7 @@ def test_wrap_restored_key_unknown_code_falls_back(capsys):
 def test_cli_resume_across_unsafe_rbg(env_data_dir, capsys):
     """unsafe_rbg checkpoints resume as unsafe_rbg under the rbg default —
     the explicit prng field survives the save/restore round trip."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -513,7 +513,7 @@ def test_cli_image_size(env_data_dir, capsys):
     and the same (resolution-independent) parameters train/sample at the
     higher resolution — where the attention sites cross the flash
     threshold (see test_image_size_64_engages_flash_in_model)."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -561,7 +561,7 @@ def test_load_params_csv_rejects_other_config_tree(env_data_dir):
 def test_strict_int_flags(env_data_dir):
     """--max-steps/--scan-steps/--keep/--sample-seed follow the hard-error
     flag policy: bare or out-of-range values never fall back silently."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -577,7 +577,7 @@ def test_strict_int_flags(env_data_dir):
 def test_batch_exceeding_dataset_is_loud(env_data_dir):
     """Zero full batches would log avg_loss=nan and checkpoint a nan
     metric; it must be a hard error instead."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0
@@ -589,7 +589,7 @@ def test_cli_scan_steps_and_host_loop(env_data_dir, capsys):
     """Positive paths of the dispatch-mode flags: --scan-steps=2 (chunked
     scan with ragged tail) and --host-loop (per-batch dispatch) both train
     and log normally."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=10)
     assert cu.main(["init", "--tiny"]) == 0
@@ -664,7 +664,7 @@ def test_cli_resume_across_param_dtype_switch(env_data_dir, capsys,
     """A train_state written under one param_dtype resumes under the other:
     the restore dtype-aligns to the requested schema instead of failing or
     silently keeping the saved dtypes (VERDICT r3 #1 'version the schema')."""
-    from big_linear_algebra_tpu.data import synth
+    from big_linear_algebra.data import synth
 
     synth.ensure_cifar(str(env_data_dir), n_batches=1, per_batch=8)
     assert cu.main(["init", "--tiny"]) == 0

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from big_linear_algebra_tpu.models import cifar_unet as cu
+from big_linear_algebra.models import cifar_unet as cu
 
 
 def test_train_chunk_matches_sequential(rng):

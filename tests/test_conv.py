@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.nn.conv import (
+from big_linear_algebra.nn.conv import (
     conv2d,
     conv2d_single,
     out_size,
@@ -71,6 +71,72 @@ def test_backward_matches_c_reference(rng, case):
                                    atol=1e-9)
 
 
+def _np_conv_same(x, kernels, stride):
+    """float64 numpy "same" correlation, (C, H, W) × (F, C, k, k), written
+    from the definition (lib/conv.c semantics): pad floor/ceil, slide,
+    contract over (C, k, k)."""
+    c, h, w = x.shape
+    f, _, k, _ = kernels.shape
+    (pt, pb), (pl, pr) = same_padding(h, k, stride), same_padding(w, k, stride)
+    xp = np.pad(x, ((0, 0), (pt, pb), (pl, pr)))
+    oh, ow = out_size(h, stride), out_size(w, stride)
+    out = np.zeros((f, oh, ow))
+    for i in range(oh):
+        for j in range(ow):
+            patch = xp[:, i * stride:i * stride + k, j * stride:j * stride + k]
+            out[:, i, j] = np.tensordot(kernels, patch, axes=3)
+    return out, xp, (pt, pl)
+
+
+def _np_conv_same_vjp(x, kernels, g, stride):
+    """The true gradients of ``_np_conv_same`` (the reference's intended
+    backward, SURVEY.md §7.1): dK accumulates g·patch, dX scatters Kᵀg
+    back into the padded input and crops."""
+    _, xp, (pt, pl) = _np_conv_same(x, kernels, stride)
+    c, h, w = x.shape
+    k = kernels.shape[-1]
+    dk = np.zeros_like(kernels)
+    dxp = np.zeros_like(xp)
+    for i in range(g.shape[1]):
+        for j in range(g.shape[2]):
+            rows = slice(i * stride, i * stride + k)
+            cols = slice(j * stride, j * stride + k)
+            dk += np.einsum("f,cab->fcab", g[:, i, j], xp[:, rows, cols])
+            dxp[:, rows, cols] += np.einsum("f,fcab->cab", g[:, i, j],
+                                            kernels)
+    return dxp[:, pt:pt + h, pl:pl + w], dk
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_matches_float64_definition(rng, case):
+    """In-repo float64 reference of the conv (runs without the C tree)."""
+    c, h, w, f, k, stride = case
+    x = rng.standard_normal((c, h, w))
+    kernels = rng.standard_normal((f, c, k, k))
+    ours = np.asarray(conv2d_single(jnp.asarray(x), jnp.asarray(kernels),
+                                    stride))
+    want, _, _ = _np_conv_same(x, kernels, stride)
+    np.testing.assert_allclose(ours, want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_backward_matches_float64_definition(rng, case):
+    """The hand-written conv VJP against the float64 definition of both
+    gradients, every stride (the C tree's dX is broken for stride > 1)."""
+    c, h, w, f, k, stride = case
+    x = rng.standard_normal((c, h, w))
+    kernels = rng.standard_normal((f, c, k, k))
+    g = rng.standard_normal((f, out_size(h, stride), out_size(w, stride)))
+    _, vjp = jax.vjp(lambda x_, k_: conv2d_single(x_, k_, stride),
+                     jnp.asarray(x), jnp.asarray(kernels))
+    dx, dk = vjp(jnp.asarray(g))
+    want_dx, want_dk = _np_conv_same_vjp(x, kernels, g, stride)
+    np.testing.assert_allclose(np.asarray(dx), want_dx, rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(np.asarray(dk), want_dk, rtol=1e-10,
+                               atol=1e-10)
+
+
 @pytest.mark.parametrize("case", CASES[:3])
 def test_vjp_matches_autodiff(rng, case):
     """Hand-written VJP vs autodiff through the plain XLA conv."""
@@ -103,7 +169,7 @@ def test_vjp_matches_autodiff(rng, case):
     (1, 3, 2, 6, 8),   # clamped on one dim only
 ])
 def test_vjp_clamped_same_padding(rng, case):
-    from big_linear_algebra_tpu.nn.conv import conv2d_nhwc
+    from big_linear_algebra.nn.conv import conv2d_nhwc
 
     kh, kw, stride, h, w = case
     x = jnp.asarray(rng.standard_normal((2, 3, h, w)))

@@ -5,7 +5,7 @@ fallback equivalence, prefetch iterator."""
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.data import (
+from big_linear_algebra.data import (
     MnistCSVStream,
     MnistDataset,
     count_num_lines,
@@ -21,8 +21,8 @@ from big_linear_algebra_tpu.data import (
     Cifar10Batches,
     prefetch_to_device,
 )
-from big_linear_algebra_tpu.data import _native, synth
-from big_linear_algebra_tpu.data.csv import _py_read_values
+from big_linear_algebra.data import _native, synth
+from big_linear_algebra.data.csv import _py_read_values
 from tests import oracle
 
 
@@ -179,8 +179,8 @@ def test_csv_malformed_tokens_strtof_semantics(tmp_path):
     """Native strtof and the Python fallback must agree on malformed input
     (ADVICE r1): non-numeric → 0.0, numeric prefix parsed, >63-char tokens
     truncated — the same file must load identically on both paths."""
-    from big_linear_algebra_tpu.data import _native
-    from big_linear_algebra_tpu.data.csv import _py_read_values
+    from big_linear_algebra.data import _native
+    from big_linear_algebra.data.csv import _py_read_values
 
     long_tok = "1" * 70
     content = f"1.5,abc,2e3x,,-.5,nanq,1e,{long_tok},+inf,\n"

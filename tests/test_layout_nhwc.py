@@ -1,7 +1,7 @@
 """Channels-last (NHWC) twins vs the canonical NCHW ops.
 
 The NHWC variants (conv2d_nhwc, group_norm_nhwc, self_attention_block_nhwc,
-cifar_unet layout="NHWC") exist purely for TPU layout performance — they must
+cifar_unet layout="NHWC") exist purely for layout performance — they must
 be bit-for-math identical to the NCHW path on transposed inputs. These tests
 pin that equivalence in f64 (ops) and f32 (full U-Net), both values and
 hand-written VJPs.
@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.models import cifar_unet as cu
-from big_linear_algebra_tpu.nn import (
+from big_linear_algebra.models import cifar_unet as cu
+from big_linear_algebra.nn import (
     conv2d,
     conv2d_nhwc,
     group_norm,

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.nn import layer_graph
+from big_linear_algebra.nn import layer_graph
 
 
 @pytest.fixture
@@ -87,8 +87,8 @@ def test_predict_batch_matches_single(rng):
 
 
 def test_my_first_model_end_to_end(env_data_dir, capsys):
-    from big_linear_algebra_tpu.data.csv import write_csv_matrix
-    from big_linear_algebra_tpu.models import my_first_model as mfm
+    from big_linear_algebra.data.csv import write_csv_matrix
+    from big_linear_algebra.models import my_first_model as mfm
 
     assert mfm.main(["init"]) == 0
     assert mfm.main(["train", "800", "0.1"]) == 0
@@ -116,8 +116,8 @@ def test_my_first_model_end_to_end(env_data_dir, capsys):
 
 
 def test_mnist_legacy_cli_smoke(env_data_dir, capsys):
-    from big_linear_algebra_tpu.data import synth
-    from big_linear_algebra_tpu.models import mnist as mnist_legacy
+    from big_linear_algebra.data import synth
+    from big_linear_algebra.models import mnist as mnist_legacy
 
     synth.ensure_mnist(str(env_data_dir), train_n=64, test_n=32)
     assert mnist_legacy.main(["init"]) == 0
@@ -136,8 +136,8 @@ def test_mnist_legacy_cli_smoke(env_data_dir, capsys):
 
 
 def test_mnist_hinge_trains_and_evaluates(env_data_dir, capsys):
-    from big_linear_algebra_tpu.data import synth
-    from big_linear_algebra_tpu.models import mnist_hinge
+    from big_linear_algebra.data import synth
+    from big_linear_algebra.models import mnist_hinge
 
     synth.ensure_mnist(str(env_data_dir), train_n=512, test_n=128)
     assert mnist_hinge.main(["init"]) == 0
@@ -161,7 +161,7 @@ def test_hinge_convergence_freezes_updates(rng):
     import jax
     import jax.numpy as jnp
 
-    from big_linear_algebra_tpu.models import mnist_hinge
+    from big_linear_algebra.models import mnist_hinge
 
     # one tiny example: per-model grad norm = |x|₂, summed over 10 models
     # → 10·|x|₂ ≈ 0.0032 < ε = 0.05, so iteration 0 converges (grads ≠ 0)
@@ -188,8 +188,8 @@ def test_mnist_legacy_he_init_learns(env_data_dir, capsys):
     """--he-init escape hatch: the Layer path CAN learn when initialized
     sanely (the default uniform(−.5,.5) init saturates by design — reference
     parity; see models/mnist.py docstring)."""
-    from big_linear_algebra_tpu.data import synth
-    from big_linear_algebra_tpu.models import mnist as mnist_legacy
+    from big_linear_algebra.data import synth
+    from big_linear_algebra.models import mnist as mnist_legacy
 
     synth.ensure_mnist(str(env_data_dir), train_n=256, test_n=64)
     assert mnist_legacy.main(["init", "--he-init"]) == 0
@@ -200,8 +200,8 @@ def test_mnist_legacy_he_init_learns(env_data_dir, capsys):
 
 
 def test_cli_rejects_unknown_and_unsupported_flags(capsys):
-    from big_linear_algebra_tpu.models import mnist_nn, my_first_model
-    from big_linear_algebra_tpu.models import mnist as mnist_legacy
+    from big_linear_algebra.models import mnist_nn, my_first_model
+    from big_linear_algebra.models import mnist as mnist_legacy
 
     assert mnist_nn.main(["train", "1", "--bogus"]) == 1
     assert "Unrecognized flag --bogus" in capsys.readouterr().out
@@ -215,7 +215,7 @@ def test_cli_rejects_unknown_and_unsupported_flags(capsys):
 def test_mnist_hinge_run_guards_bad_counts(env_data_dir):
     """run 0 previously died with ZeroDivisionError after all the work;
     negatives printed a negative 'accuracy' over a wrong slice."""
-    from big_linear_algebra_tpu.models import mnist_hinge
+    from big_linear_algebra.models import mnist_hinge
 
     assert mnist_hinge.main(["init"]) == 0
     with pytest.raises(SystemExit):
@@ -227,7 +227,7 @@ def test_mnist_hinge_run_guards_bad_counts(env_data_dir):
 def test_mnist_train_autoinit_forwards_he_flag(env_data_dir, monkeypatch):
     """train --he-init on a fresh dir must apply the flag in the automatic
     init (it was previously dropped: init() was called with flags=None)."""
-    from big_linear_algebra_tpu.models import mnist
+    from big_linear_algebra.models import mnist
 
     seen = {}
     real_init = mnist.init
@@ -245,7 +245,7 @@ def test_mnist_stream_eof_terminated_last_value(tmp_path):
     """An MNIST CSV whose last line ends at EOF (no trailing comma or
     newline) must still yield its final example — the csv format contract
     accepts EOF-terminated values."""
-    from big_linear_algebra_tpu.data.mnist import MnistCSVStream
+    from big_linear_algebra.data.mnist import MnistCSVStream
 
     vals1 = ",".join(str(v) for v in range(785))
     vals2 = ",".join(str(v + 1) for v in range(785))

@@ -1,13 +1,12 @@
-"""Matmul kernel tests: C-oracle parity (float64 XLA path), Pallas interpret
-parity (float32), transposed variants, and hand-written VJPs vs autodiff."""
+"""Matmul tests: C-oracle parity (float64), transposed variants against
+float64 numpy in f32 and bf16, and hand-written VJPs vs autodiff."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.ops import matmul, matmul_nt, matmul_tn
-from big_linear_algebra_tpu.ops.matmul import _pallas_mm
+from big_linear_algebra.ops import matmul, matmul_nt, matmul_tn
 from tests import oracle
 
 SHAPES = [(3, 4, 5), (64, 32, 10), (1, 7, 1), (100, 100, 100)]
@@ -38,29 +37,60 @@ def test_variants_match_numpy(rng, mnk):
     )
 
 
-@pytest.mark.parametrize("variant", ["nn", "nt", "tn"])
-@pytest.mark.parametrize("mnk", [(256, 384, 128), (130, 257, 200)])
-def test_pallas_kernel_interpret_parity(rng, variant, mnk):
-    """The Pallas kernel itself (interpret mode on CPU), incl. non-aligned
-    shapes exercising the zero-pad + slice path."""
-    m, k, n = mnk
-    a64 = rng.standard_normal((m, k))
-    b64 = rng.standard_normal((k, n))
-    expected = a64 @ b64
+def _variant_operands(a, b, variant):
+    """Lay out (a: m×k, b: k×n) as the operands of ``variant``."""
     if variant == "nn":
-        pa, pb = a64, b64
-    elif variant == "nt":
-        pa, pb = a64, b64.T.copy()
-    else:
-        pa, pb = a64.T.copy(), b64
-    out = _pallas_mm(
-        jnp.asarray(pa, jnp.float32),
-        jnp.asarray(pb, jnp.float32),
-        variant,
-        (128, 128, 128),
-        jnp.float32,
-    )
-    np.testing.assert_allclose(np.asarray(out), expected, rtol=2e-4, atol=2e-4)
+        return a, b
+    if variant == "nt":
+        return a, b.T.copy()
+    return a.T.copy(), b
+
+
+@pytest.mark.parametrize("variant", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_variants_bias_relu_grads_vs_float64(rng, variant, dtype):
+    """matmul/matmul_nt/matmul_tn on unaligned shapes, followed by bias and
+    ReLU: forward and the gradients of a, b and the bias against float64
+    numpy. f32 runs at HIGHEST (1e-4); bf16 keeps 8 mantissa bits, so its
+    operands are rounded first and the tolerance is 2e-2 of the scale."""
+    fn = {"nn": matmul, "nt": matmul_nt, "tn": matmul_tn}[variant]
+    dt = jnp.dtype(dtype)
+    m, k, n = 130, 257, 200
+    a64, b64 = rng.standard_normal((m, k)), rng.standard_normal((k, n))
+    bias64, g64 = rng.standard_normal(n), rng.standard_normal((m, n))
+    # the float64 reference sees exactly the values the kernel sees
+    a64, b64, bias64 = (np.asarray(jnp.asarray(x, dt), np.float64)
+                        for x in (a64, b64, bias64))
+    pa, pb = _variant_operands(a64, b64, variant)
+
+    def loss(pa, pb, bias):
+        pre = fn(pa, pb).astype(jnp.float32) + bias.astype(jnp.float32)
+        return jnp.sum(jnp.maximum(pre, 0.0) * g64.astype(np.float32)), pre
+
+    (_, pre), grads = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        jnp.asarray(pa, dt), jnp.asarray(pb, dt), jnp.asarray(bias64, dt))
+
+    z = a64 @ b64 + bias64
+    # the ReLU mask is a discrete decision: take it from the kernel's own
+    # pre-activation, so a bf16-rounded z near 0 cannot flip an element
+    # (an exact tie, common in bf16, takes jnp.maximum's half gradient)
+    pre = np.asarray(pre, np.float64)
+    dz = g64 * ((pre > 0) + 0.5 * (pre == 0))
+    want = {"out": np.maximum(z, 0.0), "bias": dz.sum(0)}
+    da, db = dz @ b64.T, a64.T @ dz
+    want["pa"], want["pb"] = _variant_operands(da, db, variant)
+    if variant == "tn":
+        want["pa"] = da.T
+    if variant == "nt":
+        want["pb"] = db.T
+    got = {"out": np.maximum(pre, 0.0), "pa": grads[0], "pb": grads[1], "bias": grads[2]}
+    rtol = 1e-4 if dtype == "float32" else 2e-2
+    for name, w in want.items():
+        g = np.asarray(jnp.asarray(got[name], jnp.float32), np.float64)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=rtol,
+                                   atol=rtol * np.abs(w).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("fn,shapes", [
@@ -92,21 +122,21 @@ def test_shape_mismatch_raises(rng):
 
 
 def test_fused_bias_relu_epilogue(rng):
-    """bias+ReLU fused into the kernel epilogue must match the composed
-    ops, including on padded (non-tile-aligned) shapes, f32 and bf16."""
+    """The bias+ReLU epilogue must match the composed ops, including on
+    non-power-of-two shapes, f32 and bf16."""
     import jax.numpy as jnp
 
-    from big_linear_algebra_tpu.ops.matmul import _dispatch
+    from big_linear_algebra.ops.matmul import _dispatch
 
     for m, k, n, dtype in [(200, 300, 170, jnp.float32),
                            (256, 512, 384, jnp.bfloat16)]:
         x = jnp.asarray(rng.standard_normal((m, k)), dtype)
         w = jnp.asarray(rng.standard_normal((k, n)), dtype)
         b = jnp.asarray(rng.standard_normal((n,)), dtype)
-        fused = _dispatch(x, w, "nn", None, jnp.float32,
+        fused = _dispatch(x, w, "nn", jnp.float32,
                           bias=b, activation="relu")
         want = jnp.maximum(
-            _dispatch(x, w, "nn", None, jnp.float32)
+            _dispatch(x, w, "nn", jnp.float32)
             + b[None, :].astype(jnp.float32), 0.0)
         np.testing.assert_allclose(np.asarray(fused), np.asarray(want),
                                    rtol=1e-6, atol=1e-6)
@@ -117,7 +147,7 @@ def test_dense_fused_relu_gradients(rng):
     import jax
     import jax.numpy as jnp
 
-    from big_linear_algebra_tpu.nn.dense import dense
+    from big_linear_algebra.nn.dense import dense
 
     x = jnp.asarray(rng.standard_normal((64, 96)), jnp.float32)
     w = jnp.asarray(rng.standard_normal((96, 80)), jnp.float32)

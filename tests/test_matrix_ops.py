@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import big_linear_algebra_tpu.ops as ops
+import big_linear_algebra.ops as ops
 from tests import oracle
 
 pytestmark = pytest.mark.skipif(

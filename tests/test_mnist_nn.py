@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.models import mnist_nn
+from big_linear_algebra.models import mnist_nn
 from tests import oracle
 
 needs_ref = pytest.mark.skipif(
@@ -112,7 +112,7 @@ def test_gradient_parity_with_reference_derivation(rng):
 def test_train_step_learns(rng, tmp_path):
     os.environ["BLA_DATA_DIR"] = str(tmp_path)
     try:
-        from big_linear_algebra_tpu.data import synth, MnistDataset
+        from big_linear_algebra.data import synth, MnistDataset
 
         train_csv, _ = synth.ensure_mnist(str(tmp_path), train_n=512, test_n=64)
         data = MnistDataset.from_csv(train_csv)
@@ -222,7 +222,7 @@ def test_csv_checkpoint_roundtrip(tmp_path, rng):
 def test_cli_end_to_end(tmp_path, capsys):
     os.environ["BLA_DATA_DIR"] = str(tmp_path)
     try:
-        from big_linear_algebra_tpu.data import synth
+        from big_linear_algebra.data import synth
 
         synth.ensure_mnist(str(tmp_path), train_n=256, test_n=64)
         assert mnist_nn.main(["init"]) == 0

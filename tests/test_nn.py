@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.nn import (
+from big_linear_algebra.nn import (
     dense,
     hinge_loss,
     mse_loss,
@@ -112,7 +112,7 @@ def test_loss_finite_difference(rng, loss):
 def test_mse_and_hinge_loss_mask(rng):
     """Ragged-batch masks: masked examples contribute nothing to value or
     gradient (the module contract all losses share)."""
-    from big_linear_algebra_tpu.nn.losses import hinge_loss, mse_loss
+    from big_linear_algebra.nn.losses import hinge_loss, mse_loss
 
     pred = jnp.asarray(rng.standard_normal((4, 3, 2, 2)))
     target = jnp.asarray(rng.standard_normal((4, 3, 2, 2)))
@@ -141,7 +141,7 @@ def test_mse_fractional_mask_primal_vjp_agree(rng):
     """The primal and the custom-vjp forward must agree for fractional
     masks: sum(m*d^2) with seed 2*m*d (premasking d computed sum(m^2*d^2)
     only under differentiation — the same call silently changed value)."""
-    from big_linear_algebra_tpu.nn.losses import mse_loss
+    from big_linear_algebra.nn.losses import mse_loss
 
     pred = jnp.asarray(rng.standard_normal((3, 4)))
     target = jnp.asarray(rng.standard_normal((3, 4)))
@@ -165,7 +165,7 @@ def test_adam_moments_promote_to_f32_for_bf16_params():
     """bf16 params get f32 moments (the 'master precision' of the
     optimizer); f32/f64 params keep their own dtype — the classic paths
     are bit-identical to the pre-mixed-precision optimizer."""
-    from big_linear_algebra_tpu.nn.optim import adam_init
+    from big_linear_algebra.nn.optim import adam_init
 
     params = {"a": jnp.ones((3,), jnp.bfloat16),
               "b": jnp.ones((3,), jnp.float32),
@@ -181,7 +181,7 @@ def test_adam_bf16_update_is_f32_math_rounded(rng):
     """One bf16-param Adam step == the same step on f32 copies of the
     params/grads, rounded to bf16 at the very end (update arithmetic never
     happens in bf16), and the returned moments stay exactly the f32 ones."""
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     p32 = jnp.asarray(rng.standard_normal((64,)) * 0.05, jnp.float32)
     g32 = jnp.asarray(rng.standard_normal((64,)) * 0.1, jnp.float32)
@@ -204,7 +204,7 @@ def test_adam_bf16_update_is_f32_math_rounded(rng):
 def test_adam_f32_path_matches_textbook(rng):
     """The f32 path is the plain Kingma-Ba update (regression guard for the
     mixed-precision refactor: promote/cast must be identities here)."""
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     p = jnp.asarray(rng.standard_normal((16,)), jnp.float32)
     g = jnp.asarray(rng.standard_normal((16,)), jnp.float32)
@@ -220,7 +220,7 @@ def test_stochastic_round_bf16_exact_and_unbiased(rng):
     """Exactly-representable values pass through unchanged for every key;
     a midpoint value rounds each way with ~equal probability and the mean
     of the rounded values approaches the true value (unbiasedness)."""
-    from big_linear_algebra_tpu.nn.optim import stochastic_round_bf16
+    from big_linear_algebra.nn.optim import stochastic_round_bf16
 
     exact = jnp.asarray(rng.standard_normal((256,)), jnp.float32)
     exact = exact.astype(jnp.bfloat16).astype(jnp.float32)
@@ -240,7 +240,7 @@ def test_stochastic_round_bf16_exact_and_unbiased(rng):
 
 def test_adam_sr_key_only_touches_bf16(rng):
     """sr_key must leave f32 params bit-identical to the keyless path."""
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     p = jnp.asarray(rng.standard_normal((32,)), jnp.float32)
     g = jnp.asarray(rng.standard_normal((32,)), jnp.float32)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.nn.norm import group_norm
+from big_linear_algebra.nn.norm import group_norm
 from tests import oracle
 
 needs_ref = pytest.mark.skipif(

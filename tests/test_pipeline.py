@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.parallel import make_mesh
-from big_linear_algebra_tpu.parallel.pipeline import gpipe
+from big_linear_algebra.parallel import make_mesh
+from big_linear_algebra.parallel.pipeline import gpipe
 
 
 def _stage_fn(params, x):
@@ -83,7 +83,7 @@ def _hetero_fns_params(rng):
 
 
 def test_gpipe_hetero_matches_sequential(rng):
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
     fns, params = _hetero_fns_params(rng)
@@ -101,7 +101,7 @@ def test_gpipe_hetero_matches_sequential(rng):
 def test_hetero_stats(rng):
     """hetero_stats reports the packing plan gpipe_hetero actually uses:
     padded width = widest boundary, tick count, padding fractions."""
-    from big_linear_algebra_tpu.parallel.pipeline import hetero_stats
+    from big_linear_algebra.parallel.pipeline import hetero_stats
 
     fns, params = _hetero_fns_params(rng)
     M, B = 5, 4
@@ -126,7 +126,7 @@ def test_hetero_stats(rng):
 
 
 def test_gpipe_hetero_gradients_match(rng):
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
     fns, params = _hetero_fns_params(rng)
@@ -155,8 +155,8 @@ def test_gpipe_hetero_gradients_match(rng):
 def test_gpipe_hetero_unet_stages(rng):
     """The U-Net down/mid/up split (SURVEY §2.4 PP row) matches the
     sequential forward, microbatch for microbatch."""
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     cfg = cu.TINY
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
@@ -187,8 +187,8 @@ def test_gpipe_hetero_unet_training_mode(rng):
     """Training-mode pipeline (dropout ON via per-(stage, microbatch) keys)
     matches a sequential run of the stage fns given the SAME fold_in chain —
     so the stochastic layers are reproducible across the two executions."""
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     import dataclasses
     # f64: the keyed parity must be tight — any key mismatch flips ~10% of
@@ -225,8 +225,8 @@ def test_gpipe_hetero_unet_training_mode(rng):
 def test_gpipe_hetero_key_mismatch_errors(rng):
     """train=True without a key, or a key on inference stages, fails loudly
     instead of silently running the wrong dropout mode."""
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     cfg = cu.TINY
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
@@ -247,8 +247,8 @@ def test_gpipe_hetero_unet_nhwc_layout(rng):
     """cfg.layout="NHWC" is honored by the pipeline stages (boundary stays
     external NCHW; transpose happens at entry/exit like forward())."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     cfg_c = dataclasses.replace(cu.TINY, compute_dtype="float64")
     cfg_h = dataclasses.replace(cfg_c, layout="NHWC")
@@ -274,8 +274,8 @@ def test_pp_train_step_matches_sequential(rng):
     dropout fold chain (f64 — reordering noise ≤1e-9, a wrong key or a
     dropped microbatch gradient would show at O(1e-2))."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
@@ -328,8 +328,8 @@ def test_pp_train_step_mixed_precision(rng):
     ``forward`` does (regression: the cast was missing, so ``--pp`` at the
     default bf16 config crashed at trace time with a conv dtype mismatch)."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.nn.optim import adam_init
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.nn.optim import adam_init
 
     cfg = dataclasses.replace(cu.TINY, compute_dtype="bfloat16")
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
@@ -348,8 +348,8 @@ def test_pp_train_step_mixed_precision(rng):
 def test_gpipe_hetero_training_mode_gradients(rng):
     """Gradients flow through the keyed pipeline and match the sequential
     chain with the same keys."""
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     import dataclasses
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
@@ -422,8 +422,8 @@ def test_pp_dp_train_step_matches_sequential(rng):
     match the same sequential microbatched reference as the 1-D PP test
     (identical global-microbatch dropout fold chain), in f64 to ~1e-9."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
     mesh = make_mesh({"stage": 3, "data": 2}, devices=jax.devices()[:6])
@@ -471,7 +471,7 @@ def test_pp_dp_train_step_matches_sequential(rng):
 
 def test_gpipe_hetero_data_axis_validation():
     """n_micro not divisible by the data axis is a loud error."""
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero
 
     mesh = make_mesh({"stage": 2, "data": 2}, devices=jax.devices()[:4])
     fns = [lambda p, x: jnp.tanh(x @ p), lambda p, x: x @ p]
@@ -487,8 +487,8 @@ def test_pp_1f1b_train_step_matches_sequential(rng):
     produce the same loss/params as the sequential microbatched reference —
     the same comparator as the GPipe-autodiff test, f64 ~1e-9."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
     mesh = make_mesh({"stage": 3}, devices=jax.devices()[:3])
@@ -539,8 +539,8 @@ def test_pp_1f1b_dp_train_step_matches_sequential(rng):
     sequential reference as the 1-D 1F1B test (global-microbatch dropout
     folds), f64 ~1e-9."""
     import dataclasses
-    from big_linear_algebra_tpu.models import cifar_unet as cu
-    from big_linear_algebra_tpu.nn.optim import adam_init, adam_update
+    from big_linear_algebra.models import cifar_unet as cu
+    from big_linear_algebra.nn.optim import adam_init, adam_update
 
     cfg = dataclasses.replace(cu.TINY, compute_dtype="float64")
     mesh = make_mesh({"stage": 3, "data": 2}, devices=jax.devices()[:6])
@@ -587,7 +587,7 @@ def test_pp_1f1b_dp_train_step_matches_sequential(rng):
 
 def test_gpipe_hetero_1f1b_data_axis_validation():
     """n_micro not divisible by the data axis is a loud error (1F1B)."""
-    from big_linear_algebra_tpu.parallel.pipeline import gpipe_hetero_1f1b
+    from big_linear_algebra.parallel.pipeline import gpipe_hetero_1f1b
 
     mesh = make_mesh({"stage": 2, "data": 2}, devices=jax.devices()[:4])
     fns = [lambda p, x: jnp.tanh(x @ p), lambda p, x: x @ p]
@@ -604,7 +604,7 @@ def test_gpipe_hetero_1f1b_data_axis_validation():
 
 
 def test_hetero_stats_1f1b_fields():
-    from big_linear_algebra_tpu.parallel.pipeline import hetero_stats
+    from big_linear_algebra.parallel.pipeline import hetero_stats
 
     fns = [lambda p, x: jnp.tanh(x @ p), lambda p, x: x @ p]
     ps = [jnp.eye(4), jnp.eye(4)]

@@ -33,8 +33,8 @@ def test_my_first_model_shipped_weights_forward_parity(ref_data_dir):
     reference's ``run`` always prints "Different signs!" (its Layer path was
     float-era and is float/double-broken as committed, SURVEY.md §7.13) —
     parity here means reproducing that exact behavior."""
-    from big_linear_algebra_tpu.models import my_first_model as mfm
-    from big_linear_algebra_tpu.nn import layer_graph
+    from big_linear_algebra.models import my_first_model as mfm
+    from big_linear_algebra.nn import layer_graph
 
     params = mfm.load_params()
     assert params[0][0].shape == (3, 2) and params[1][0].shape == (2, 3)
@@ -55,7 +55,7 @@ def test_my_first_model_shipped_weights_forward_parity(ref_data_dir):
 def test_mnist_nn_shipped_weights_load_and_roundtrip(tmp_path):
     from pathlib import Path
 
-    from big_linear_algebra_tpu.models import mnist_nn
+    from big_linear_algebra.models import mnist_nn
 
     params = mnist_nn.load_params_csv(base=Path(REF_DATA) / "mnist_nn")
     for i, (o, i_) in enumerate([(256, 784), (128, 256), (10, 128)], 1):
@@ -72,7 +72,7 @@ def test_mnist_nn_shipped_weights_load_and_roundtrip(tmp_path):
 def test_mnist_hinge_shipped_weights_load():
     import importlib
 
-    from big_linear_algebra_tpu.models import mnist_hinge
+    from big_linear_algebra.models import mnist_hinge
 
     os.environ["BLA_DATA_DIR"] = REF_DATA
     try:

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from big_linear_algebra_tpu.nn.attention import attention_dense
-from big_linear_algebra_tpu.parallel import make_mesh
-from big_linear_algebra_tpu.parallel.ring_attention import ring_attention
+from big_linear_algebra.nn.attention import attention_dense
+from big_linear_algebra.parallel import make_mesh
+from big_linear_algebra.parallel.ring_attention import ring_attention
 
 
 def test_ring_matches_dense(rng):
@@ -36,21 +36,25 @@ def test_ring_gradients_match_dense(rng):
 
 
 def test_ring_blocks_sublane_aligned():
-    """Every block size _ring_blocks picks must be a multiple of the 8-row
-    TPU sublane tile — Mosaic rejects misaligned blocks on hardware, and the
-    CPU interpret-mode tests would never catch it (ADVICE r2)."""
-    from big_linear_algebra_tpu.parallel.ring_attention import _ring_blocks
+    """Every tiling a ring shard gets is legal for the Triton kernel:
+    powers of two of at least 16 rows (the CPU interpret-mode tests would
+    not catch an illegal block; the GPU compiler would), with the shard
+    padded by less than one block."""
+    from big_linear_algebra.nn.attention import flash_blocks
 
     for n_local in (1, 7, 8, 20, 24, 100, 500, 513, 600, 1024, 2048):
-        bq, bk = _ring_blocks(n_local)
-        assert bq % 8 == 0 and bk % 8 == 0, (n_local, bq, bk)
+        blocks = flash_blocks(n_local, 16, jnp.float32)
+        for b in blocks[:4]:
+            assert b >= 16 and b & (b - 1) == 0, (n_local, blocks)
+        big = max(blocks[:4])
+        assert -(-n_local // big) * big - n_local < big, (n_local, blocks)
 
 
 def test_ring_unaligned_shard(rng):
-    """n_local=20 (not a sublane multiple): the rounded-up block pads the
-    shard; fwd and grads still match dense."""
+    """n_local=20 (not a power of two): the 32-row block pads the shard
+    and masks the tail; fwd and grads still match dense."""
     mesh = make_mesh({"seq": 4, "data": 2})
-    b, n, d = 1, 80, 8   # 80/4 = 20 rows per shard: 20 % 8 != 0
+    b, n, d = 1, 80, 8   # 80/4 = 20 rows per shard
     q = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)
     k = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)
@@ -68,12 +72,10 @@ def test_ring_unaligned_shard(rng):
 
 
 def test_ring_non_pow2_shard(rng):
-    """Non-power-of-two local shards (n_local=24 here) must not explode the
-    kernel padding (the old (bq, bk)=(512, 1024)-capped blocks padded to
-    lcm; equal blocks keep padding under one block) — fwd and grads still
-    match dense."""
+    """Non-power-of-two local shards (n_local=24 here) pad to one block
+    only — fwd and grads still match dense."""
     mesh = make_mesh({"seq": 4, "data": 2})
-    b, n, d = 1, 96, 8   # 96/4 = 24 rows per shard: 24 % 1024 != 0
+    b, n, d = 1, 96, 8   # 96/4 = 24 rows per shard
     q = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)
     k = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((b, n, d)), jnp.float32)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from big_linear_algebra_tpu.utils import checked, no_jit, validate_finite
+from big_linear_algebra.utils import checked, no_jit, validate_finite
 
 
 def test_checked_catches_nan():
@@ -26,7 +26,7 @@ def test_validate_finite():
 
 
 def test_no_jit_context(rng):
-    from big_linear_algebra_tpu.ops import matmul
+    from big_linear_algebra.ops import matmul
 
     a = jnp.asarray(rng.standard_normal((4, 5)))
     b = jnp.asarray(rng.standard_normal((5, 6)))
@@ -38,7 +38,7 @@ def test_no_jit_context(rng):
 
 def test_smoke_driver(tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("BLA_DATA_DIR", str(tmp_path))
-    from big_linear_algebra_tpu.models import smoke
+    from big_linear_algebra.models import smoke
 
     assert smoke.main([]) == 0
     out = capsys.readouterr().out
